@@ -27,8 +27,8 @@ jaxlib version belong in a comment here:
   (unique-shape cumsum programs) do NOT crash; neither do 800 live
   heavy executables (3-operand sort + cumsum + cummax per program,
   growing shapes). Executable COUNT and plain sort/scan code size are
-  therefore not the trigger; the suite's mix adds interpret-mode Pallas
-  bodies, shard_map programs over 8 virtual devices, and donated
+  therefore not the trigger; the suite's mix adds (until their removal)
+  interpreted kernel bodies, shard_map programs over 8 virtual devices, and donated
   buffers — one of those interactions is implicated. The scoped
   per-module clear (tests/conftest.py) remains the workaround; re-run
   this falsifier, then the full suite without clearing, on jaxlib

@@ -5,10 +5,9 @@ sharded pipeline (data-parallel codec -> per-chip epoch tables -> one
 hash-sharded all-to-all -> host gather). Efficiency_n = T_1 / T_n with
 per-device work held constant (ideal = 1.0).
 
-On this rig only virtual CPU devices are available (one real TPU chip), so
-the numbers characterize the orchestration overhead and collective volume,
-not ICI hardware — the harness is the methodology that runs unchanged on a
-real pod slice. Every mesh size is also exactness-checked against the host
+On virtual CPU devices the numbers characterize the orchestration overhead
+and collective volume only; the harness runs unchanged on a multi-GPU
+host, where the times are the card's. Every mesh size is also exactness-checked against the host
 oracle, so the artifact doubles as a determinism record.
 
 Run: KRUST_PLATFORM=cpu python benches/scaling.py [out.json]
@@ -31,12 +30,12 @@ import numpy as np
 def main() -> None:
     import jax
 
-    from krust_tpu.io.reader import ParsedStreams
-    from krust_tpu.kmer import INVALID_CODE
-    from krust_tpu.models.engines import NumpyEngine
-    from krust_tpu.parallel.mesh import make_mesh
-    from krust_tpu.parallel.sharded import count_sharded
-    from krust_tpu.utils.config import EngineConfig
+    from krust.io.reader import ParsedStreams
+    from krust.kmer import INVALID_CODE
+    from krust.models.engines import NumpyEngine
+    from krust.parallel.mesh import make_mesh
+    from krust.parallel.sharded import count_sharded
+    from krust.utils.config import EngineConfig
 
     k = 21
     rng = np.random.default_rng(0)
@@ -48,17 +47,11 @@ def main() -> None:
         codes[rng.random(n_bases) < 0.001] = INVALID_CODE
         return ParsedStreams(codes, None, 1, n_bases)
 
-    # CPU meshes: interpret-mode Pallas kernels run in pure Python and
-    # would swamp the measurement; the XLA table path exercises the same
-    # orchestration/collectives. Real TPU meshes use the production core.
-    on_tpu = jax.devices()[0].platform not in ("cpu", "gpu")
+    virtual = jax.devices()[0].platform != "gpu"
     per_dev_bases = int(
-        os.environ.get("SCALE_BASES_PER_DEV", 2_000_000 if on_tpu else 400_000)
+        os.environ.get("SCALE_BASES_PER_DEV", 400_000 if virtual else 2_000_000)
     )
-    cfg = EngineConfig(
-        block_windows=4096, batch_rows=256, use_epoch_sort=on_tpu
-    )
-    virtual = not on_tpu
+    cfg = EngineConfig(block_windows=4096, batch_rows=256)
     if virtual:
         print(
             "# NOTE: virtual CPU devices share one physical core — weak\n"
@@ -67,7 +60,7 @@ def main() -> None:
             "# meaningful solely on real multi-chip hardware.",
             flush=True,
         )
-    from krust_tpu.utils import tracing
+    from krust.utils import tracing
 
     meshes = []
     t1 = None

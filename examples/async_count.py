@@ -17,8 +17,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from krust_tpu import AsyncKmerCounter
-from krust_tpu.errors import KrustError
+from krust import AsyncKmerCounter
+from krust.errors import KrustError
 
 
 async def main() -> None:

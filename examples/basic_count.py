@@ -14,8 +14,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from krust_tpu import KmerCounter
-from krust_tpu.errors import KrustError
+from krust import KmerCounter
+from krust.errors import KrustError
 
 
 def main() -> None:

@@ -1,11 +1,11 @@
 """Differential check against Jellyfish, when installed
 (reference: examples/compare_with_jellyfish.rs, tests/jellyfish_compat.rs).
 
-Counts k-mers with krust_tpu, then — if a ``jellyfish`` binary is on PATH —
+Counts k-mers with krust, then — if a ``jellyfish`` binary is on PATH —
 runs ``jellyfish count -m k -s 100M -C`` + ``jellyfish dump -c`` on the same
 input and diffs the full canonical count maps, printing the first few
 mismatches and a comparison summary. Without jellyfish it prints a summary
-of the krust_tpu results alone.
+of the krust results alone.
 
 Usage::
 
@@ -20,8 +20,8 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import krust_tpu as kt
-from krust_tpu.errors import KrustError
+import krust as kt
+from krust.errors import KrustError
 
 
 def run_jellyfish(path: str, k: int) -> dict[str, int] | None:
@@ -67,13 +67,13 @@ def compare_counts(ours: dict[str, int], jellyfish: dict[str, int]) -> bool:
             ours_only += 1
         elif jf != count:
             if mismatches < 5:
-                print(f"  Mismatch: {kmer} krust_tpu={count} jellyfish={jf}",
+                print(f"  Mismatch: {kmer} krust={count} jellyfish={jf}",
                       file=sys.stderr)
             mismatches += 1
     jellyfish_only = sum(1 for kmer in jellyfish if kmer not in ours)
 
     print("\n=== Comparison Results ===")
-    print(f"krust_tpu unique k-mers: {len(ours)}")
+    print(f"krust unique k-mers: {len(ours)}")
     print(f"Jellyfish unique k-mers: {len(jellyfish)}")
     print()
     if mismatches == 0 and ours_only == 0 and jellyfish_only == 0:
@@ -81,7 +81,7 @@ def compare_counts(ours: dict[str, int], jellyfish: dict[str, int]) -> bool:
         return True
     print("Differences:")
     print(f"  Count mismatches:    {mismatches}")
-    print(f"  Only in krust_tpu:   {ours_only}")
+    print(f"  Only in krust:   {ours_only}")
     print(f"  Only in Jellyfish:   {jellyfish_only}")
     return False
 
@@ -112,13 +112,13 @@ def main() -> None:
     path = args[0]
     k = int(args[1]) if len(args) > 1 else 21
 
-    print(f"Counting {k}-mers with krust_tpu...", file=sys.stderr)
+    print(f"Counting {k}-mers with krust...", file=sys.stderr)
     try:
         ours = kt.count_kmers(path, k)
     except (KrustError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         sys.exit(1)
-    print(f"krust_tpu found {len(ours)} unique canonical k-mers",
+    print(f"krust found {len(ours)} unique canonical k-mers",
           file=sys.stderr)
 
     theirs = run_jellyfish(path, k)
@@ -127,7 +127,7 @@ def main() -> None:
               file=sys.stderr)
         print("  macOS:  brew install jellyfish", file=sys.stderr)
         print("  Linux:  apt install jellyfish", file=sys.stderr)
-        print("\nkrust_tpu results only:", file=sys.stderr)
+        print("\nkrust results only:", file=sys.stderr)
         print_summary(ours)
         return
 

@@ -16,8 +16,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from krust_tpu import KmerCounter, Progress
-from krust_tpu.errors import KrustError
+from krust import KmerCounter, Progress
+from krust.errors import KrustError
 
 
 def format_bases(bases: float) -> str:

@@ -18,9 +18,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from krust_tpu import Input, count_with_input
-from krust_tpu.errors import KrustError
-from krust_tpu.utils.config import EngineConfig
+from krust import Input, count_with_input
+from krust.errors import KrustError
+from krust.utils.config import EngineConfig
 
 
 def _synthesize(path: str, mbases: int = 8) -> None:

@@ -4,7 +4,7 @@ The reference fuzzes with libfuzzer's edge-coverage-guided corpus evolution
 (reference: fuzz/fuzz_targets/fuzz_kmer_from_sub.rs, fuzz_pack_unpack.rs,
 fuzz_canonical.rs). This harness reproduces that search power in pure
 Python 3.12: ``sys.monitoring`` BRANCH events give per-run edge coverage of
-the krust_tpu modules, a corpus keeps every input that reached new edges,
+the krust modules, a corpus keeps every input that reached new edges,
 and mutations (byte flips, arithmetic, inserts/deletes, splices, interesting
 values) evolve it — the classic AFL/libfuzzer loop. Inputs are raw byte
 buffers; each target derives its structure from them exactly as the
@@ -25,8 +25,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from krust_tpu import Kmer, canonical_packed, pack, unpack_to_string
-from krust_tpu.errors import InvalidBaseError
+from krust import Kmer, canonical_packed, pack, unpack_to_string
+from krust.errors import InvalidBaseError
 
 _COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
 _TOOL_ID = 5  # sys.monitoring tool slot (0-5 free for applications)
@@ -36,7 +36,7 @@ _INTERESTING = [0, 1, 4, 0x3E, 0x40, ord("A"), ord("C"), ord("G"), ord("T"),
 
 
 class EdgeCoverage:
-    """Edge coverage of krust_tpu code via sys.monitoring BRANCH+JUMP events."""
+    """Edge coverage of krust code via sys.monitoring BRANCH+JUMP events."""
 
     def __init__(self):
         self.seen: set[tuple] = set()
@@ -48,7 +48,7 @@ class EdgeCoverage:
         mon.set_events(_TOOL_ID, mon.events.BRANCH | mon.events.JUMP)
 
     def _on_branch(self, code, src, dst):
-        if "krust_tpu" in code.co_filename:
+        if "krust" in code.co_filename:
             self.current.add((code.co_qualname, src, dst))
 
     def run(self, fn, *args) -> int:

@@ -19,8 +19,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from krust_tpu import Kmer, canonical_packed, pack, unpack_to_string
-from krust_tpu.errors import InvalidBaseError
+from krust import Kmer, canonical_packed, pack, unpack_to_string
+from krust.errors import InvalidBaseError
 
 _COMP = {"A": "T", "C": "G", "G": "C", "T": "A"}
 

@@ -1,177 +1,57 @@
-"""krust_tpu — a TPU-native k-mer counting engine.
+"""Former name of the :mod:`krust` package, kept for old imports.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of the
-reference Rust tool ``kmerust`` (suchapalaver/krust): canonical k-mer
-counting (k = 1-32, 2-bit packed) over FASTA/FASTQ (plain/gzip, file/stdin)
-with N-base skipping, soft-mask normalization, and Phred quality filtering;
-FASTA/TSV/JSON/histogram output with min-count filtering; a byte-compatible
-binary ``.kmix`` index plus query; library, builder, streaming, progress and
-async APIs; and a CLI with the same UX.
-
-Architecture (TPU-first, not a port — see SURVEY.md §7):
-  host reader/packer  ->  dense haloed [B, W+k-1] uint8 code tensors
-  device rolling codec -> canonical (hi, lo) uint32 code pairs + validity
-  device sort-count    -> compacted distinct (code, count) per batch
-  host/device merge    -> u64 totals; multi-chip via hash-sharded all-to-all
+Importing it warns (``DeprecationWarning``). Its attributes are those of
+:mod:`krust`, and each submodule imported through it is the :mod:`krust`
+module of the same name (one module object, not a copy). ``python -m``
+with this name runs the ``kmix`` CLI. Import ``krust`` instead.
 """
 
-__version__ = "0.7.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-import os as _os
+import krust as _krust
 
-# Allow forcing the JAX platform via env (e.g. KRUST_PLATFORM=cpu for tests /
-# machines whose site config pins an accelerator platform). Must happen
-# before any backend initialization.
-if _os.environ.get("KRUST_PLATFORM"):
-    try:
-        import jax as _jax
-
-        _jax.config.update("jax_platforms", _os.environ["KRUST_PLATFORM"])
-    except Exception:
-        pass
-
-from .api import (
-    count_kmers,
-    count_kmers_files,
-    count_kmers_from_input,
-    count_kmers_from_input_packed,
-    count_kmers_with_format,
-    count_kmers_with_quality,
-    count_kmers_with_progress,
-    count_kmers_mmap,
-    count_kmers_streaming,
-    count_kmers_streaming_packed,
-    count_kmers_packed,
-    count_kmers_sequential,
-    count_kmers_from_reader,
-    count_kmers_from_reader_packed,
-    count_kmers_stdin,
-    count_kmers_stdin_packed,
-    count_kmers_stdin_with_format,
-    count_kmers_from_sequences,
-    count_kmers_from_sequences_packed,
-    count_kmers_sniffed,
-    count_kmers_sharded,
-    count_kmers_sharded_result,
-    count_with_input,
-    run,
-    run_with_options,
-    run_with_input,
-    run_with_input_format,
-    run_with_quality,
+warnings.warn(
+    f"the package name {__name__!r} is deprecated; import 'krust' instead",
+    DeprecationWarning,
+    stacklevel=2,
 )
-from .async_api import AsyncKmerCounter, count_kmers_async, count_kmers_packed_async
-from .builder import KmerCounter
-from .errors import (
-    BuilderError,
-    FormatError,
-    InvalidBaseError,
-    InvalidIndexError,
-    IndexReadError,
-    IndexWriteError,
-    KmerLengthError,
-    KrustError,
-    ReadError,
-)
-from .histogram import (
-    HistogramStats,
-    compute_histogram,
-    compute_histogram_packed,
-    histogram_stats,
-)
-from .index import KmerIndex, load_index, save_index
-from .io.format import SequenceFormat
-from .io.input import Input
-from .io.mmapfile import MmapFasta
-from .kmer import (
-    Kmer,
-    KmerBase,
-    KmerLength,
-    canonical_packed,
-    canonical_string,
-    pack,
-    unpack_to_bytes,
-    unpack_to_string,
-)
-from .models.engines import PackedCounts
-from .output import OutputFormat, format_packed_counts, output_counts, output_packed
-from .utils.progress import Progress, ProgressTracker
 
-__all__ = [
-    "__version__",
-    # counting
-    "count_kmers",
-    "count_kmers_with_format",
-    "count_kmers_with_quality",
-    "count_kmers_with_progress",
-    "count_kmers_files",
-    "count_kmers_from_input",
-    "count_kmers_from_input_packed",
-    "count_kmers_mmap",
-    "count_kmers_streaming",
-    "count_kmers_streaming_packed",
-    "count_kmers_packed",
-    "count_kmers_sequential",
-    "count_kmers_from_reader",
-    "count_kmers_from_reader_packed",
-    "count_kmers_stdin",
-    "count_kmers_stdin_packed",
-    "count_kmers_stdin_with_format",
-    "count_kmers_sniffed",
-    "count_kmers_sharded",
-    "count_kmers_sharded_result",
-    "count_kmers_from_sequences",
-    "count_kmers_from_sequences_packed",
-    "count_with_input",
-    "run",
-    "run_with_options",
-    "run_with_input",
-    "run_with_input_format",
-    "run_with_quality",
-    # async
-    "AsyncKmerCounter",
-    "count_kmers_async",
-    "count_kmers_packed_async",
-    # builder
-    "KmerCounter",
-    # kmer core
-    "Kmer",
-    "KmerBase",
-    "KmerLength",
-    "pack",
-    "unpack_to_bytes",
-    "unpack_to_string",
-    "canonical_packed",
-    "canonical_string",
-    # io
-    "Input",
-    "MmapFasta",
-    "SequenceFormat",
-    # output / histogram
-    "OutputFormat",
-    "output_counts",
-    "output_packed",
-    "format_packed_counts",
-    "compute_histogram",
-    "compute_histogram_packed",
-    "histogram_stats",
-    "HistogramStats",
-    # index
-    "KmerIndex",
-    "save_index",
-    "load_index",
-    # progress
-    "Progress",
-    "ProgressTracker",
-    "PackedCounts",
-    # errors
-    "KrustError",
-    "KmerLengthError",
-    "InvalidBaseError",
-    "BuilderError",
-    "FormatError",
-    "ReadError",
-    "IndexReadError",
-    "IndexWriteError",
-    "InvalidIndexError",
-]
+__version__ = _krust.__version__
+
+
+def __getattr__(name):
+    return getattr(_krust, name)
+
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<this package>.x.y`` to ``krust.x.y``. First on
+    ``sys.meta_path``: the path finder would load a second copy of a
+    :mod:`krust` file under the old name. ``__main__`` is this
+    directory's own."""
+
+    alias_of = __name__
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(self.alias_of + ".") and name != self.alias_of + ".__main__":
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        real = importlib.import_module("krust" + spec.name[len(self.alias_of):])
+        self._specs[real.__name__] = real.__spec__
+        return real
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the real module
+        module.__spec__ = self._specs.pop(module.__name__)
+
+
+if not any(getattr(f, "alias_of", None) == __name__ for f in sys.meta_path):
+    sys.meta_path.insert(0, _Alias())

@@ -1,8 +1,8 @@
-"""``python -m krust_tpu`` — the kmix CLI entry point."""
+"""``python -m`` under the package's former name: the ``kmix`` CLI."""
 
 import sys
 
-from .cli import main
+from krust.cli import main
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,7 +1,7 @@
 """Independent brute-force k-mer counting oracle.
 
 A deliberately naive pure-Python implementation of the reference semantics
-(reference: src/run.rs:526-571), written without reusing any krust_tpu
+(reference: src/run.rs:526-571), written without reusing any krust
 codec code, for differential testing. Slow; use on small inputs only.
 """
 

@@ -6,8 +6,8 @@ import io
 
 import pytest
 
-import krust_tpu as kt
-from krust_tpu.io.format import SequenceFormat
+import krust as kt
+from krust.io.format import SequenceFormat
 
 import oracle
 
@@ -161,7 +161,7 @@ class TestMmapFasta:
 
     def test_zero_copy_parse(self, simple_fa):
         # the mapped view feeds the parser directly (what count_kmers_mmap does)
-        from krust_tpu.io.reader import parse_to_streams
+        from krust.io.reader import parse_to_streams
 
         with kt.MmapFasta.open(simple_fa) as m:
             streams = parse_to_streams(m.as_bytes(), SequenceFormat.FASTA)
@@ -317,7 +317,7 @@ class TestInputDispatch:
     and count_kmers_stdin_packed (src/streaming.rs:349-353)."""
 
     def test_from_input_file(self, simple_fa):
-        from krust_tpu.io.input import Input
+        from krust.io.input import Input
 
         got = kt.count_kmers_from_input(Input.from_path(simple_fa), 3)
         assert got == kt.count_kmers(simple_fa, 3)
@@ -328,7 +328,7 @@ class TestInputDispatch:
     def test_from_input_stdin(self, monkeypatch):
         import io as _io
 
-        from krust_tpu.io.input import Input
+        from krust.io.input import Input
 
         class _Stdin:
             buffer = _io.BytesIO(b">s\nACGT\n")

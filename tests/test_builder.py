@@ -5,9 +5,9 @@ import asyncio
 
 import pytest
 
-import krust_tpu as kt
-from krust_tpu.errors import BuilderError
-from krust_tpu.io.format import SequenceFormat
+import krust as kt
+from krust.errors import BuilderError
+from krust.io.format import SequenceFormat
 
 
 def test_builder_basic(simple_fa):

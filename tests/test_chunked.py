@@ -11,12 +11,12 @@ import random
 import numpy as np
 import pytest
 
-import krust_tpu as kt
-from krust_tpu.api import _count_path
-from krust_tpu.io.format import SequenceFormat
-from krust_tpu.io.reader import stream_input_chunks
-from krust_tpu.models.engines import BatchEngine
-from krust_tpu.utils.config import EngineConfig
+import krust as kt
+from krust.api import _count_path
+from krust.io.format import SequenceFormat
+from krust.io.reader import stream_input_chunks
+from krust.models.engines import BatchEngine
+from krust.utils.config import EngineConfig
 
 import oracle
 
@@ -104,7 +104,7 @@ def test_chunk_boundaries_are_record_aligned(tmp_path, seqs):
 
 
 def test_progress_fires_per_chunk(tmp_path, seqs):
-    from krust_tpu.utils.progress import ProgressTracker
+    from krust.utils.progress import ProgressTracker
 
     p = tmp_path / "prog.fa"
     _write_fasta(p, seqs)
@@ -166,7 +166,7 @@ class TestFromReaderBounded:
         the configured chunk is counted exactly through stream_input_chunks
         (round-4 change: the name is now true — the reference's same-named
         function batches everything, src/streaming.rs:857-899)."""
-        import krust_tpu.api as api_mod
+        import krust.api as api_mod
 
         p = tmp_path / "big.fa"
         _write_fasta(p, seqs)
@@ -187,7 +187,7 @@ class TestFromReaderBounded:
         assert sum(packed.values()) == sum(expected.values())
 
     def test_builder_count_streaming_chunked(self, tmp_path, seqs, monkeypatch):
-        import krust_tpu.api as api_mod
+        import krust.api as api_mod
 
         p = tmp_path / "big.fa"
         _write_fasta(p, seqs)
@@ -217,7 +217,7 @@ class TestFromReaderBounded:
         _write_fasta(p, seqs)
         env = dict(os.environ, KRUST_PLATFORM="cpu", KRUST_ENGINE="native")
         out = subprocess.run(
-            [sys.executable, "-m", "krust_tpu", "7", "-", "-f", "tsv", "-q"],
+            [sys.executable, "-m", "krust", "7", "-", "-f", "tsv", "-q"],
             stdin=open(p, "rb"),
             capture_output=True,
             text=True,

@@ -1,6 +1,6 @@
 """CLI black-box tests (mirrors reference: tests/integration_tests.rs).
 
-Spawns the real CLI as a subprocess (``python -m krust_tpu``), asserting on
+Spawns the real CLI as a subprocess (``python -m krust``), asserting on
 stdout/stderr/exit codes exactly like the reference's integration suite.
 """
 
@@ -14,16 +14,32 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+#: the CLI with the device engine pinned: ``KRUST_ENGINE=device`` needs a
+#: GPU, so a fresh process patches the selection instead
+_DEVICE_CLI = (
+    "import sys\n"
+    "from krust import cli\n"
+    "from krust.models import engines\n"
+    "engines.select_engine = lambda cfg: engines.BatchEngine(cfg)\n"
+    "sys.exit(cli.main(sys.argv[1:]))\n"
+)
+
+
 def kmix(*args, stdin: bytes | None = None, engine: str = "native"):
     env = dict(os.environ)
     env["KRUST_PLATFORM"] = "cpu"
-    # black-box tests assert CLI semantics, not the XLA pipeline (the
-    # library suites cover that differentially); the native engine skips
-    # the ~12 s/process XLA-CPU compile. engine="device" opts back in.
-    env["KRUST_ENGINE"] = engine
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    if engine == "device":
+        env.pop("KRUST_ENGINE", None)
+        cmd = [sys.executable, "-c", _DEVICE_CLI, *args]
+    else:
+        # black-box tests assert CLI semantics, not the XLA pipeline (the
+        # library suites cover that differentially); the native engine
+        # skips the XLA-CPU compile of every process
+        env["KRUST_ENGINE"] = engine
+        cmd = [sys.executable, "-m", "krust", *args]
     return subprocess.run(
-        [sys.executable, "-m", "krust_tpu", *args],
+        cmd,
         input=stdin,
         capture_output=True,
         env=env,
@@ -387,7 +403,21 @@ class TestDevicePipelineCLI:
         assert parse_tsv(rd.stdout) == parse_tsv(rn.stdout) == SIMPLE_EXPECTED_K3
 
     def test_device_engine_quiet_contract(self, simple_fa):
-        # --quiet must stay byte-silent on stderr through the jax pipeline too
+        # --quiet must stay byte-silent on stderr (fd 2, C++ logs and
+        # warnings included) through the jax pipeline too
         rd = kmix("21", simple_fa, "-f", "tsv", "-q", engine="device")
         assert rd.returncode == 0
         assert rd.stderr == b""
+
+
+def test_quiet_fd2_silenced_and_restored(capfd):
+    """What the engine writes to fd 2 under --quiet is dropped, and fd 2
+    comes back before an error is reported."""
+    from krust.cli import _fd2_silenced
+
+    with pytest.raises(RuntimeError):
+        with _fd2_silenced(True):
+            os.write(2, b"runtime log line\n")
+            raise RuntimeError("engine failed")
+    os.write(2, b"error shown\n")
+    assert capfd.readouterr().err == "error shown\n"

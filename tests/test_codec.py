@@ -10,12 +10,12 @@ import random
 import numpy as np
 import pytest
 
-from krust_tpu.io.packer import blockize
-from krust_tpu.io.reader import streams_from_sequences
-from krust_tpu.kmer import unpack_many
-from krust_tpu.models.engines import count_stream_numpy
-from krust_tpu.ops.codec import combine64, encode_blocks
-from krust_tpu.ops.count import count_unique
+from krust.io.packer import blockize
+from krust.io.reader import streams_from_sequences
+from krust.kmer import unpack_many
+from krust.models.engines import count_stream_numpy
+from krust.ops.codec import combine64, encode_blocks
+from krust.ops.count import count_unique
 
 import oracle
 
@@ -150,7 +150,7 @@ def test_batch_shape_independence():
 def test_count_runs_matches_count_unique(k):
     """The scatter-free hot path must agree with the compacted path."""
     import numpy as np
-    from krust_tpu.ops.count import count_runs, count_unique
+    from krust.ops.count import count_runs, count_unique
 
     rng = np.random.default_rng(500 + k)
     n = 4096
@@ -180,10 +180,10 @@ def test_count_runs_matches_count_unique(k):
 @pytest.mark.parametrize("k", [1, 3, 16, 21, 32])
 def test_packed_2bit_path_matches(k):
     """Bit-packed transfer path must equal the raw-code path exactly."""
-    from krust_tpu.io.packer import pack_buffer_2bit
-    from krust_tpu.models.engines import _dense_raw_step
-    from krust_tpu.ops.codec import combine64
-    from krust_tpu.ops.count import count_runs
+    from krust.io.packer import pack_buffer_2bit
+    from krust.models.engines import _dense_raw_step
+    from krust.ops.codec import combine64
+    from krust.ops.count import count_runs
 
     rng = random.Random(900 + k)
     seqs = [oracle.random_dna(rng, rng.randint(0, 200), "ACGTacgtNn") for _ in range(10)]
@@ -196,7 +196,7 @@ def test_packed_2bit_path_matches(k):
         s_hi, s_lo, cnt = np.asarray(s_hi), np.asarray(s_lo), np.asarray(cnt)
         live = cnt > 0
         codes64 = combine64(s_hi[live], s_lo[live])
-        from krust_tpu.kmer import unpack_many
+        from krust.kmer import unpack_many
 
         for km, c in zip(unpack_many(codes64, k), cnt[live].tolist()):
             got[km] = got.get(km, 0) + c
@@ -204,11 +204,11 @@ def test_packed_2bit_path_matches(k):
 
 
 def test_packed_2bit_quality():
-    from krust_tpu.io.packer import pack_buffer_2bit
-    from krust_tpu.models.engines import _dense_raw_step
-    from krust_tpu.ops.codec import combine64
-    from krust_tpu.ops.count import count_runs
-    from krust_tpu.kmer import unpack_many
+    from krust.io.packer import pack_buffer_2bit
+    from krust.models.engines import _dense_raw_step
+    from krust.ops.codec import combine64
+    from krust.ops.count import count_runs
+    from krust.kmer import unpack_many
 
     rng = random.Random(33)
     records = []

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from krust_tpu.io.reader import ParsedStreams
-from krust_tpu.kmer import INVALID_CODE
-from krust_tpu.models.engines import BatchEngine, NumpyEngine
-from krust_tpu.utils.config import EngineConfig
+from krust.io.reader import ParsedStreams
+from krust.kmer import INVALID_CODE
+from krust.models.engines import BatchEngine, NumpyEngine
+from krust.utils.config import EngineConfig
 
 
 def _stream(rng, n, p_invalid=0.0):
@@ -49,7 +49,7 @@ def test_epoch_table_homopolymer_counts():
 
 
 def test_epoch_table_window_limit_flush(monkeypatch):
-    import krust_tpu.ops.table as table_mod
+    import krust.ops.table as table_mod
 
     rng = np.random.default_rng(19)
     codes = _stream(rng, 6000, p_invalid=0.01)
@@ -77,7 +77,7 @@ def test_epoch_table_vs_device_table():
 def test_epoch_table_raw_epoch_entry_flush(monkeypatch):
     """Force the raw-entry epoch limit so multiple sort+rle flushes and the
     compacted-part merge path execute."""
-    import krust_tpu.ops.table as table_mod
+    import krust.ops.table as table_mod
 
     monkeypatch.setattr(table_mod, "EPOCH_ENTRY_LIMIT", 2048)
     rng = np.random.default_rng(5)
@@ -109,10 +109,10 @@ def test_k16_one_op_sentinel_safety():
 
 
 class TestAdaptiveAndScaledLimits:
-    """Round 5: HBM-scaled entry limits + duplication-adaptive epoch sizing."""
+    """Memory-derived entry limits + duplication-adaptive epoch sizing."""
 
     def test_env_override_pins_limits(self, monkeypatch):
-        import krust_tpu.ops.table as table_mod
+        import krust.ops.table as table_mod
 
         monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "12345")
         monkeypatch.setenv("KRUST_PENDING_ENTRIES", "6789")
@@ -123,23 +123,43 @@ class TestAdaptiveAndScaledLimits:
         assert t._adaptive is False  # explicit pin disables adaptation
 
     def test_hbm_scaling(self, monkeypatch):
-        import krust_tpu.ops.table as table_mod
+        """The budget is a share of the device's bytes_limit over the
+        measured peak bytes per epoch entry."""
+        import krust.ops.table as table_mod
 
         monkeypatch.delenv("KRUST_EPOCH_ENTRIES", raising=False)
-        # simulate a 8GB part: limits halve vs the 16GB tuning point
-        monkeypatch.setattr(table_mod, "_HBM_CACHE", 8 << 30)
-        assert table_mod.epoch_entry_limit() == 120_000_000
+        bpe = table_mod.EPOCH_BYTES_PER_ENTRY
+        limit = 80 << 30
+        monkeypatch.setattr(table_mod, "_MEM_CACHE", limit)
+        assert table_mod.epoch_entry_limit() == int(
+            limit * table_mod._MEMORY_SHARE
+        ) // bpe
+        # twice the memory, twice the budget
+        monkeypatch.setattr(table_mod, "_MEM_CACHE", 2 * limit)
+        assert table_mod.epoch_entry_limit() == int(
+            2 * limit * table_mod._MEMORY_SHARE
+        ) // bpe
         # simulate a tiny device: the 1M floor holds
-        monkeypatch.setattr(table_mod, "_HBM_CACHE", 1 << 20)
+        monkeypatch.setattr(table_mod, "_MEM_CACHE", 1 << 20)
         assert table_mod.epoch_entry_limit() == 1 << 20
-        # unqueryable (CPU): tuned constants as-is
-        monkeypatch.setattr(table_mod, "_HBM_CACHE", None)
+        # no memory limit reported (XLA on the CPU): the fixed budget
+        monkeypatch.setattr(table_mod, "_MEM_CACHE", None)
         assert table_mod.epoch_entry_limit() == table_mod.EPOCH_ENTRY_LIMIT
+
+    def test_pending_limit_follows_memory(self, monkeypatch):
+        import krust.ops.table as table_mod
+
+        monkeypatch.delenv("KRUST_PENDING_ENTRIES", raising=False)
+        monkeypatch.setattr(table_mod, "_MEM_CACHE", 64 << 30)
+        t = table_mod.DeviceTable(k=21)
+        assert t._pending_limit == int(
+            (64 << 30) * table_mod._MEMORY_SHARE
+        ) // table_mod.DeviceTable.MERGE_BYTES_PER_ENTRY
 
     def test_adaptive_epoch_shrinks_on_duplication(self, monkeypatch):
         """High-duplication input retunes the epoch limit after epoch 1
         (to ADAPT_DUP_TARGET * distinct) and stays exact vs the oracle."""
-        import krust_tpu.ops.table as table_mod
+        import krust.ops.table as table_mod
 
         monkeypatch.delenv("KRUST_EPOCH_ENTRIES", raising=False)
         monkeypatch.setattr(table_mod, "EPOCH_ENTRY_LIMIT", 4096)
@@ -171,7 +191,7 @@ class TestAdaptiveAndScaledLimits:
         assert np.array_equal(got_counts, exp.counts)
 
     def test_adaptive_epoch_keeps_large_on_low_duplication(self, monkeypatch):
-        import krust_tpu.ops.table as table_mod
+        import krust.ops.table as table_mod
 
         monkeypatch.delenv("KRUST_EPOCH_ENTRIES", raising=False)
         monkeypatch.setattr(table_mod, "EPOCH_ENTRY_LIMIT", 2048)
@@ -186,3 +206,78 @@ class TestAdaptiveAndScaledLimits:
         table.finalize()
         # distinct ~= windows: target 64 * n exceeds the limit -> unchanged
         assert table._epoch_limit == 2048
+
+
+class TestPartSpill:
+    """Parts whose device merge would not fit the merge budget are pulled
+    and merged on the host, exactly."""
+
+    @pytest.mark.parametrize("k", [13, 21])
+    def test_spilled_count_matches_oracle(self, monkeypatch, k):
+        import krust.ops.table as table_mod
+        from krust.utils import tracing
+
+        monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "2048")
+        monkeypatch.setenv("KRUST_PENDING_ENTRIES", "3000")
+        rng = np.random.default_rng(31 + k)
+        codes = _stream(rng, 20_000, p_invalid=0.01)
+        streams = ParsedStreams(codes, None, 1, codes.shape[0])
+        spills = []
+        collect = lambda kind, name, f: name == "part_spill" and spills.append(f)
+        tracing.add_collector(collect)
+        try:
+            got = BatchEngine(_cfg()).count(streams, k)
+        finally:
+            tracing.remove_collector(collect)
+        assert spills and all(f["entries"] > 3000 for f in spills)
+        exp = NumpyEngine(EngineConfig()).count(streams, k)
+        assert np.array_equal(got.codes, exp.codes)
+        assert np.array_equal(got.counts, exp.counts)
+        assert table_mod.EpochTable(k)._host_parts == []
+
+    def test_parts_within_budget_merge_on_device(self, monkeypatch):
+        from krust.utils import tracing
+
+        monkeypatch.setenv("KRUST_EPOCH_ENTRIES", "2048")
+        monkeypatch.setenv("KRUST_PENDING_ENTRIES", str(1 << 30))
+        rng = np.random.default_rng(32)
+        codes = _stream(rng, 20_000, p_invalid=0.01)
+        streams = ParsedStreams(codes, None, 1, codes.shape[0])
+        names = []
+        collect = lambda kind, name, f: names.append(name)
+        tracing.add_collector(collect)
+        try:
+            BatchEngine(_cfg()).count(streams, 13)
+        finally:
+            tracing.remove_collector(collect)
+        assert "part_merge" in names and "part_spill" not in names
+
+
+def _table(rng, n, space):
+    codes = np.unique(rng.integers(0, space, n).astype(np.uint64))
+    return codes, rng.integers(1, 1000, codes.shape[0]).astype(np.uint64)
+
+
+@pytest.mark.parametrize(
+    "sizes,space",
+    [
+        ([1000, 1000], 1 << 40),  # nearly disjoint
+        ([3000, 2000, 500], 4000),  # heavy overlap, three parts
+        ([0, 700], 1 << 20),  # empty first part
+        ([700, 0], 1 << 20),  # empty later part
+        ([1, 1], 1),  # one shared key
+    ],
+)
+def test_host_merge_of_tables_matches_numpy(sizes, space):
+    """The host merge behind spilled parts and multi-table counts."""
+    from krust.models.engines import _merge_partials
+
+    rng = np.random.default_rng(sum(sizes))
+    parts = [_table(rng, n, space) for n in sizes]
+    exp = {}
+    for codes, counts in parts:
+        for c, n in zip(codes.tolist(), counts.tolist()):
+            exp[c] = exp.get(c, 0) + n
+    codes, counts = _merge_partials([c for c, _ in parts], [n for _, n in parts])
+    assert codes.tolist() == sorted(exp)
+    assert counts.tolist() == [exp[c] for c in sorted(exp)]

@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from krust_tpu.io.packer import (
+from krust.io.packer import (
     flat_batch_widths,
     flat_batches,
     invalid_positions,
     pack2_full,
 )
-from krust_tpu.io.reader import ParsedStreams
-from krust_tpu.kmer import INVALID_CODE
-from krust_tpu.models.engines import BatchEngine, NumpyEngine
-from krust_tpu.utils.config import EngineConfig
+from krust.io.reader import ParsedStreams
+from krust.kmer import INVALID_CODE
+from krust.models.engines import BatchEngine, NumpyEngine
+from krust.utils.config import EngineConfig
 
 
 def _random_stream(rng, n, p_invalid=0.0):
@@ -123,7 +123,7 @@ def test_count_saturation_uint8_exception_path():
 
 def test_epoch_flush_merges_exactly(monkeypatch):
     """Force tiny epochs; multi-epoch merge must equal single-epoch counts."""
-    import krust_tpu.ops.table as table_mod
+    import krust.ops.table as table_mod
 
     rng = np.random.default_rng(19)
     codes = _random_stream(rng, 6000, p_invalid=0.01)
@@ -131,7 +131,7 @@ def test_epoch_flush_merges_exactly(monkeypatch):
     cfg = EngineConfig(block_windows=256, batch_rows=8)
     oracle = NumpyEngine(cfg).count(streams, 11)
     monkeypatch.setattr(table_mod, "EPOCH_WINDOW_LIMIT", 4096)
-    import krust_tpu.models.engines as eng_mod
+    import krust.models.engines as eng_mod
 
     monkeypatch.setattr(eng_mod, "EPOCH_WINDOW_LIMIT", 4096, raising=False)
     res = BatchEngine(cfg).count(streams, 11)
@@ -168,7 +168,7 @@ class TestProgressCadence:
     input — not one 0%->100% jump after all batches (round-1 regression)."""
 
     def _run(self, use_flat):
-        from krust_tpu.utils.progress import ProgressTracker
+        from krust.utils.progress import ProgressTracker
 
         rng = np.random.default_rng(3)
         codes = _random_stream(rng, 40_000, p_invalid=0.0 if use_flat else 0.2)
@@ -190,9 +190,9 @@ class TestProgressCadence:
         assert snaps[-1].sequences_processed == 10
 
     def test_sharded_progress_cadence(self):
-        from krust_tpu.parallel.mesh import make_mesh
-        from krust_tpu.parallel.sharded import count_sharded
-        from krust_tpu.utils.progress import ProgressTracker
+        from krust.parallel.mesh import make_mesh
+        from krust.parallel.sharded import count_sharded
+        from krust.utils.progress import ProgressTracker
 
         rng = np.random.default_rng(4)
         codes = _random_stream(rng, 40_000)
@@ -264,7 +264,7 @@ class TestPrefetchFeed:
             assert np.array_equal(o.counts, outs[0].counts)
 
     def test_error_propagates(self):
-        from krust_tpu.models.engines import _prefetch_staged
+        from krust.models.engines import _prefetch_staged
 
         def gen():
             yield 1
@@ -278,7 +278,7 @@ class TestPrefetchFeed:
     def test_early_abandon_no_deadlock(self):
         import threading
 
-        from krust_tpu.models.engines import _prefetch_staged
+        from krust.models.engines import _prefetch_staged
 
         n_live = threading.active_count()
         it = _prefetch_staged(iter(range(1000)), lambda x: x, depth=1)
@@ -295,7 +295,7 @@ class TestPrefetchFeed:
     def test_stage_runs_on_worker(self):
         import threading
 
-        from krust_tpu.models.engines import _prefetch_staged
+        from krust.models.engines import _prefetch_staged
 
         main = threading.current_thread().name
         seen = []

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from krust_tpu.histogram import (
+from krust.histogram import (
     compute_histogram,
     compute_histogram_array,
     compute_histogram_packed,

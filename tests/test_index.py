@@ -7,9 +7,9 @@ import zlib
 
 import pytest
 
-import krust_tpu as kt
-from krust_tpu.errors import InvalidIndexError
-from krust_tpu.index import deserialize_index, serialize_index
+import krust as kt
+from krust.errors import InvalidIndexError
+from krust.index import deserialize_index, serialize_index
 
 
 def test_crc32_known_vector():

@@ -12,7 +12,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from krust_tpu import count_kmers
+from krust import count_kmers
 
 jellyfish = shutil.which("jellyfish")
 pytestmark = pytest.mark.skipif(

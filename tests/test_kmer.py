@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from krust_tpu import kmer
-from krust_tpu.errors import InvalidBaseError, KmerLengthError
+from krust import kmer
+from krust.errors import InvalidBaseError, KmerLengthError
 
 from oracle import canonical as oracle_canonical
 

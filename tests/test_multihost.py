@@ -88,7 +88,7 @@ def test_two_process_count_matches_oracle(tmp_path, k, alphabet):
     seqs = [oracle.random_dna(rng, rng.randint(0, 300), alphabet) for _ in range(40)]
     expected = oracle.count_sequences(seqs, k)
 
-    from krust_tpu.kmer import unpack_many
+    from krust.kmer import unpack_many
 
     got = dict(zip(unpack_many(codes, k), counts.tolist()))
     assert got == expected

@@ -6,9 +6,9 @@ import json
 import numpy as np
 import pytest
 
-from krust_tpu.kmer import pack_many, unpack_many
-from krust_tpu.models.engines import PackedCounts
-from krust_tpu.output import (
+from krust.kmer import pack_many, unpack_many
+from krust.models.engines import PackedCounts
+from krust.output import (
     OutputFormat,
     format_packed_counts,
     output_counts,

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from krust_tpu.kmer import (
+from krust.kmer import (
     canonical_packed,
     pack,
     revcomp_packed,
@@ -88,8 +88,8 @@ class TestEngineProperties:
 
     @pytest.mark.parametrize("seed", range(6))
     def test_total_counts_bounded_by_windows(self, seed):
-        from krust_tpu.io.reader import ParsedStreams
-        from krust_tpu.models.engines import NumpyEngine, count_streams
+        from krust.io.reader import ParsedStreams
+        from krust.models.engines import NumpyEngine, count_streams
 
         rng = np.random.default_rng(seed)
         k = int(rng.integers(1, 33))
@@ -106,7 +106,7 @@ class TestEngineProperties:
 
     @pytest.mark.parametrize("seed", range(4))
     def test_kmer_plus_rc_merge_to_count_2(self, seed):
-        from krust_tpu.api import count_kmers_from_sequences
+        from krust.api import count_kmers_from_sequences
 
         rng = np.random.default_rng(100 + seed)
         k = int(rng.integers(1, 33))
@@ -130,7 +130,7 @@ class TestEngineProperties:
     )
 )
 def test_index_roundtrip_random_maps(counts):
-    from krust_tpu.index import KmerIndex, deserialize_index, serialize_index
+    from krust.index import KmerIndex, deserialize_index, serialize_index
 
     idx = KmerIndex(8, counts)
     loaded = deserialize_index(serialize_index(idx))
@@ -168,8 +168,8 @@ def test_native_count_matches_numpy_oracle(codes_list, k, threads):
     (reference semantics: src/run.rs:526-571 window scan)."""
     import os
 
-    from krust_tpu.io import native
-    from krust_tpu.models.engines import count_stream_numpy
+    from krust.io import native
+    from krust.models.engines import count_stream_numpy
 
     codes = np.array([min(c, 4) for c in codes_list], dtype=np.uint8)
     saved = os.environ.pop("KRUST_NATIVE_THREADS", None)

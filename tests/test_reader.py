@@ -9,10 +9,10 @@ import gzip
 import numpy as np
 import pytest
 
-from krust_tpu.errors import FormatError
-from krust_tpu.io.format import SequenceFormat, is_gzip_path
-from krust_tpu.io.input import Input
-from krust_tpu.io.reader import (
+from krust.errors import FormatError
+from krust.io.format import SequenceFormat, is_gzip_path
+from krust.io.input import Input
+from krust.io.reader import (
     parse_records,
     parse_to_streams,
     read_records,

@@ -10,12 +10,12 @@ import jax
 import numpy as np
 import pytest
 
-from krust_tpu.io.reader import streams_from_sequences
-from krust_tpu.kmer import unpack_many
-from krust_tpu.models.engines import NumpyEngine
-from krust_tpu.parallel.mesh import make_mesh
-from krust_tpu.parallel.sharded import count_sharded
-from krust_tpu.utils.config import EngineConfig
+from krust.io.reader import streams_from_sequences
+from krust.kmer import unpack_many
+from krust.models.engines import NumpyEngine
+from krust.parallel.mesh import make_mesh
+from krust.parallel.sharded import count_sharded
+from krust.utils.config import EngineConfig
 
 import oracle
 
@@ -115,7 +115,7 @@ class TestExchangeOverflow:
 
     def _skewed_entries(self, n_dev, per_chip, want):
         """Random (hi, lo) uint32 pairs all hashing to owner 0."""
-        from krust_tpu.parallel import sharded as sh
+        from krust.parallel import sharded as sh
 
         rng = np.random.default_rng(9)
         out_hi, out_lo = [], []
@@ -139,7 +139,7 @@ class TestExchangeOverflow:
     def _make_table(self, mesh, n_dev, per_chip):
         import jax.numpy as jnp
 
-        from krust_tpu.parallel.sharded import ShardedTable
+        from krust.parallel.sharded import ShardedTable
 
         hi, lo = self._skewed_entries(n_dev, per_chip, want=0)
         cnt = np.ones((n_dev, per_chip), np.uint32)
@@ -151,7 +151,7 @@ class TestExchangeOverflow:
         return table, expected
 
     def test_retry_succeeds_after_first_pass_overflow(self, eight_devices, monkeypatch):
-        from krust_tpu.parallel import sharded as sh
+        from krust.parallel import sharded as sh
 
         mesh = make_mesh(8)
         # 768 skewed entries/chip: first-pass cap ~ ceil(L/8)*4 < entries to
@@ -182,7 +182,7 @@ class TestExchangeOverflow:
         assert got == expected
 
     def test_capacity_overflow_raises_with_final_factor(self, eight_devices):
-        from krust_tpu.parallel.sharded import CapacityOverflow
+        from krust.parallel.sharded import CapacityOverflow
 
         mesh = make_mesh(8)
         table, _ = self._make_table(mesh, 8, 768)
@@ -200,10 +200,10 @@ def test_epoch_flush_defers_sync(eight_devices):
     flush/exchange and results stay exact."""
     import jax.numpy as jnp
 
-    from krust_tpu.parallel.sharded import EpochShardedTable
+    from krust.parallel.sharded import EpochShardedTable
 
     mesh = make_mesh(8)
-    table = EpochShardedTable(21, mesh, interpret=True)
+    table = EpochShardedTable(21, mesh)
 
     rng = np.random.default_rng(3)
     expected = {}

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from krust_tpu import (
+from krust import (
     KmerCounter,
     SequenceFormat,
     count_kmers,
@@ -99,7 +99,7 @@ def test_sharded_gzip_fastq_quality(tmp_path):
     quality filtering, equals the single-device engine."""
     import gzip
 
-    from krust_tpu import count_kmers_with_quality
+    from krust import count_kmers_with_quality
 
     rng = np.random.default_rng(77)
     recs = []

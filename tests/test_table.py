@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from krust_tpu.ops.count import count_unique
-from krust_tpu.ops.table import DeviceTable
-from krust_tpu.models.engines import _HostAccumulator
+from krust.ops.count import count_unique
+from krust.ops.table import DeviceTable
+from krust.models.engines import _HostAccumulator
 
 
 def _batch(rng, n, key_space):
@@ -165,32 +165,6 @@ def test_table_packed_pull_declined_on_heavy_duplication():
     assert np.array_equal(got_counts, cnts.astype(np.uint64))
 
 
-class TestPullHost:
-    """Sliced d2h pulls must be byte-identical to a single transfer."""
-
-    def test_chunked_equals_single(self, monkeypatch):
-        import jax.numpy as jnp
-
-        from krust_tpu.ops.table import _pull_host
-
-        arr = jnp.arange(5_000_000, dtype=jnp.uint8)
-        monkeypatch.setenv("KRUST_PULL_CHUNK_MB", "1")
-        chunked = _pull_host(arr)
-        monkeypatch.setenv("KRUST_PULL_CHUNK_MB", "0")
-        single = _pull_host(arr)
-        assert np.array_equal(chunked, single)
-        assert chunked.shape[0] == 5_000_000
-
-    def test_small_array_short_circuits(self, monkeypatch):
-        import jax.numpy as jnp
-
-        from krust_tpu.ops.table import _pull_host
-
-        monkeypatch.setenv("KRUST_PULL_CHUNK_MB", "8")
-        arr = jnp.arange(100, dtype=jnp.uint32)
-        assert np.array_equal(_pull_host(arr), np.arange(100, dtype=np.uint32))
-
-
 class TestEpochNarrowHiSort:
     """The narrowed-hi epoch sort (k 17..23) must be exact at every dtype
     boundary, including max-valid-hi keys and sentinel stripping."""
@@ -198,7 +172,7 @@ class TestEpochNarrowHiSort:
     def test_hi_sort_dtype_gates(self):
         import jax.numpy as jnp
 
-        from krust_tpu.ops.table import _hi_sort_dtype
+        from krust.ops.table import _hi_sort_dtype
 
         # round 5: sentinels are the all-ones PAIR (never a canonical
         # k-mer), so the gates are inclusive — k=20 rides u8, k=24 u16
@@ -212,16 +186,14 @@ class TestEpochNarrowHiSort:
         assert _hi_sort_dtype(32) is None
 
     def test_epoch_table_exact_at_boundaries(self):
-        from krust_tpu.models.engines import _pallas_available
-        from krust_tpu.ops.table import EpochTable
+        from krust.ops.table import EpochTable
 
-        interpret = not _pallas_available()
         rng = np.random.default_rng(7)
         sent = np.uint32(0xFFFFFFFF)
         for k in (17, 19, 20, 21, 23, 24, 25):
             hi_bits = 2 * (k - 16)
             hi_max = (1 << hi_bits) - 1
-            table = EpochTable(k=k, max_parts=2, interpret=interpret)
+            table = EpochTable(k=k, max_parts=2)
             expected: dict[int, int] = {}
             for _ in range(3):
                 n = 4096

@@ -5,9 +5,9 @@ import logging
 
 import pytest
 
-import krust_tpu as kt
-from krust_tpu.errors import InvalidBaseError, KmerLengthError
-from krust_tpu.utils import tracing
+import krust as kt
+from krust.errors import InvalidBaseError, KmerLengthError
+from krust.utils import tracing
 
 
 class _CollectingHandler(logging.Handler):
